@@ -7,7 +7,7 @@ wire bytes without needing protoc at test time.
 The encoder is the protoc-compiled REFERENCE schema
 (/root/reference/protocols/vlslam.proto) — i.e. genuine upstream wire
 format, not our own codec — so these files also lock wire compatibility
-permanently (VERDICT r1 missing-item 5).
+permanently.
 
     python tests/data/make_golden.py
 """

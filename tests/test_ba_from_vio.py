@@ -1,5 +1,5 @@
 """VIO -> BA loop: BaProblems built from real runs, and BA as a measured
-trajectory-refinement stage (VERDICT r2 item 1; BASELINE config 5).
+trajectory-refinement stage.
 
 The flagship claim is the vision-only configuration — the actual VISMA
 distribution ships no raw IMU (SURVEY §0) — where batch BA over the whole

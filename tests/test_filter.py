@@ -321,7 +321,7 @@ class TestEndToEnd:
 
 class TestHealthGate:
     """Jitted finite-check + structured divergence abort (SURVEY §5
-    sanitizer row; VERDICT r1 item 9)."""
+    sanitizer row)."""
 
     def _run(self, poison_frame=None):
         from visma_tpu.io.synthetic import (SyntheticConfig, make_dataset,

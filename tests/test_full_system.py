@@ -96,7 +96,7 @@ def test_images_to_result_json_to_metrics(tmp_path, capsys):
 
     renderers = {}
     for name in planted:
-        r = Renderer(intr, capacity=96)
+        r = Renderer(intr)
         r.set_mesh(*db[name])
         renderers[name] = r
 

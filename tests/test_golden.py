@@ -2,7 +2,7 @@
 encoded ONCE with the protoc-compiled reference schema
 (/root/reference/protocols/vlslam.proto via tests/data/make_golden.py), so
 these tests pin the loader, native decoder, and CLI tools against real
-upstream wire bytes without protoc at test time (VERDICT r1 missing-item 5).
+upstream wire bytes without protoc at test time.
 
 Conventions verified against src/dataloader.cpp:49-194.
 """
@@ -208,7 +208,7 @@ class TestGoldenCli:
     def test_full_image_pipeline_on_golden(self, tmp_path, capsys):
         """End-to-end images -> tracker -> filter -> export on the golden
         fixture (run_vio --images): the closest possible stand-in for
-        real-data hardening in this container (VERDICT r2 item 7). The
+        real-data hardening in this container. The
         golden PNGs are static-texture gradients, so vision-only tracking
         gates most features out — the assertion is finite poses and a
         reference-semantics round-trip of the written dataset, not ATE."""

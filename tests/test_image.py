@@ -7,8 +7,8 @@ import pytest
 
 from visma_tpu.image import (
     AtanModel, RadTanModel, Undistorter, CORVIS_ATAN_CALIB,
-    bilinear_remap, bilinear_remap_pallas,
-    depth_edge, depth_edge_pallas, linearize_gl_depth, soft_threshold,
+    bilinear_remap,
+    depth_edge, linearize_gl_depth, soft_threshold,
     sobel_gradients, shi_tomasi_response,
 )
 from visma_tpu.image.undistort import corvis_undistorter, undistorter_from_file
@@ -55,19 +55,6 @@ class TestRemap:
         batch = jnp.asarray(np.stack([img, img]))
         out2 = bilinear_remap(batch, rm)
         assert out2.shape == (2, 40, 40, 3)
-
-    def test_pallas_matches_xla(self):
-        rng = np.random.default_rng(1)
-        img = rng.uniform(0, 1, (100, 128)).astype(np.float32)
-        sx = rng.uniform(1, 126, (96, 128)).astype(np.float32)
-        sy = rng.uniform(1, 98, (96, 128)).astype(np.float32)
-        sx[10, :] = -1  # some invalid rows
-        rm = jnp.asarray(np.stack([sx, sy], -1))
-        a = np.asarray(bilinear_remap(jnp.asarray(img), rm))
-        b = np.asarray(bilinear_remap_pallas(jnp.asarray(img), rm,
-                                             interpret=True))
-        np.testing.assert_allclose(a, b, atol=1e-4)
-
 
 class TestUndistorter:
     def test_atan_corvis_K(self):
@@ -161,12 +148,6 @@ class TestEdges:
         lin = float(linearize_gl_depth(jnp.asarray(z), zn, zf))
         assert abs(lin - m) < 1e-3
         assert float(linearize_gl_depth(jnp.asarray(1.0), zn, zf)) == -1.0
-
-    def test_pallas_matches_xla(self):
-        d = np.stack([self.make_depth(), np.full((64, 96), 2.0, np.float32)])
-        a = np.asarray(depth_edge(jnp.asarray(d)))
-        b = np.asarray(depth_edge_pallas(jnp.asarray(d), interpret=True))
-        np.testing.assert_allclose(a, b, atol=1e-5)
 
     def test_background_no_edge(self):
         d = np.zeros((32, 32), np.float32)  # all background

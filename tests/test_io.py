@@ -260,3 +260,63 @@ class TestJsonComments:
         assert cfg["evaluation"]["voxel_size"] == 0.05
         assert cfg["evaluation"]["max_distance"] == 0.075
         assert cfg["result_visualization"]["result_index"] == -1
+
+
+class TestSyntheticImagesWithoutCv2:
+    """The adversarial bench imagery is made with numpy/scipy alone. It
+    stays close to the earlier cv2 rendition of the same scene: that one
+    upsampled the texture with Keys cubic interpolation where scipy uses a
+    cubic B-spline, so pixels differ by a few gray levels on average
+    (bounded below at 3 of 255), and the frames keep their contrast."""
+
+    CFG = SyntheticConfig(num_frames=6, num_landmarks=60, rows=96,
+                          cols=128, fx=90.0, fy=90.0, cx=64.0, cy=48.0,
+                          seed=7)
+
+    @staticmethod
+    def _cv2_texture(rng, size=512, octaves=4):
+        import cv2
+
+        tex = np.zeros((size, size), np.float32)
+        for o in range(octaves):
+            n = 8 << o
+            coarse = rng.standard_normal((n, n)).astype(np.float32)
+            coarse = np.concatenate([coarse, coarse[:, :1]], axis=1)
+            up = cv2.resize(coarse, (size + size // n, size),
+                            interpolation=cv2.INTER_CUBIC)[:, :size]
+            tex += up / (1.6 ** o)
+        return tex / (np.abs(tex).max() + 1e-6)
+
+    def test_frames_without_cv2(self, monkeypatch):
+        import sys
+
+        from visma_tpu.io import synthetic_images as S
+
+        monkeypatch.setitem(sys.modules, "cv2", None)   # import -> error
+        frames, _, _ = S.render_adversarial_frames(self.CFG)
+        monkeypatch.delitem(sys.modules, "cv2")
+        assert frames.shape == (6, 96, 128)
+        assert np.isfinite(frames).all()
+        assert frames.min() >= 0 and frames.max() <= 255
+
+        import cv2
+
+        def cv2_wrap(tex, mu, mv):
+            return cv2.remap(tex, mu, mv, interpolation=cv2.INTER_LINEAR,
+                             borderMode=cv2.BORDER_WRAP)
+
+        # the bilinear sampler alone agrees with cv2's to f32 rounding
+        tex = S._bg_texture(np.random.default_rng(0), size=64, octaves=2)
+        rng = np.random.default_rng(1)
+        mu = rng.uniform(-64, 128, (40, 50)).astype(np.float32)
+        mv = rng.uniform(0, 63, (40, 50)).astype(np.float32)
+        np.testing.assert_allclose(S._sample_wrap(tex, mu, mv),
+                                   cv2_wrap(tex, mu, mv), atol=2e-3)
+
+        monkeypatch.setattr(S, "_bg_texture", self._cv2_texture)
+        monkeypatch.setattr(S, "_sample_wrap", cv2_wrap)
+        ref, _, _ = S.render_adversarial_frames(self.CFG)
+        diff = np.abs(frames - ref)
+        assert diff.mean() < 3.0, diff.mean()
+        np.testing.assert_allclose(frames.std(axis=(1, 2)),
+                                   ref.std(axis=(1, 2)), rtol=0.05)

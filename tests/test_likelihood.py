@@ -64,7 +64,7 @@ class TestHypothesisScoring:
         sweep must rank the true pose (or its immediate neighbor) best."""
         intr = Intrinsics(fx=120.0, fy=120.0, cx=63.5, cy=47.5, rows=96,
                           cols=128, z_near=0.05, z_far=10.0)
-        r = Renderer(intr, capacity=64)
+        r = Renderer(intr)
         # asymmetric mesh: an L of two boxes
         from tests.test_render import icosphere
 

@@ -91,7 +91,7 @@ class TestPcgSolve:
 
 class TestSolverDispatch:
     """sharded_ba_solve's `solver` flag wires the matrix-free PCG path into
-    the system (VERDICT r1 item 5)."""
+    the system."""
 
     def test_flag_selects_equal_solutions(self):
         prob, _ = synthetic_ba_problem(num_poses=8, num_landmarks=96,

@@ -36,7 +36,7 @@ def test_merge_reindexes():
 
 def test_bench_meshes_are_real_scale_and_5k_faces():
     """The semantic bench substrate: >=5k faces (the aeron's class) and
-    furniture-scale extents (VERDICT r3 item 1)."""
+    furniture-scale extents."""
     for name, (V, F) in (("desk", desk_mesh()),
                          ("chair", office_chair_mesh())):
         assert len(F) >= 5000, (name, len(F))

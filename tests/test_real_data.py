@@ -1,4 +1,4 @@
-"""Opt-in validation on REAL VISMA sequences (VERDICT r3 item 9).
+"""Opt-in validation on REAL VISMA sequences.
 
 The container ships no dataset (zero egress), so these tests SKIP unless
 `VISMA_DATA_ROOT` points at a directory of downloaded VISMA sequences

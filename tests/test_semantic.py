@@ -33,7 +33,7 @@ INTR = Intrinsics(fx=150.0, fy=150.0, cx=79.5, cy=59.5, rows=120, cols=160,
 class TestCem:
     def test_recovers_perturbed_pose(self):
         V, F = l_mesh()
-        r = Renderer(INTR, capacity=96)
+        r = Renderer(INTR)
         r.set_mesh(V, F)
 
         true_T = np.eye(4)
@@ -67,11 +67,11 @@ class TestOcclusion:
         from tests.test_eval import cube_mesh
 
         V, F = l_mesh()
-        target = Renderer(INTR, capacity=96)
+        target = Renderer(INTR)
         target.set_mesh(V, F)
         Vo, Fo = cube_mesh(1.0)
         Vo = Vo * np.array([0.18, 0.5, 0.1], np.float32)
-        occluder = Renderer(INTR, capacity=96)
+        occluder = Renderer(INTR)
         occluder.set_mesh(Vo, Fo)
 
         T_t = np.eye(4, dtype=np.float32)
@@ -171,7 +171,7 @@ class TestShapeRetrieval:
         true_T = np.eye(4)
         true_T[:3, :3] = Rotation.from_euler("y", yaw_true).as_matrix()
         true_T[:3, 3] = [0.0, 0.0, 2.0]
-        r = Renderer(INTR, capacity=96)
+        r = Renderer(INTR)
         r.set_mesh(V, F)
         edges = np.asarray(r.render_edge(
             jnp.asarray(true_T[:3, :4].astype(np.float32))))
@@ -208,7 +208,7 @@ class TestShapeRetrieval:
         true_T = np.eye(4)
         true_T[:3, :3] = Rotation.from_euler("y", yaw_true).as_matrix()
         true_T[:3, 3] = [0.0, 0.0, 2.0]
-        r = Renderer(INTR, capacity=96)
+        r = Renderer(INTR)
         r.set_mesh(V, F)
         edges = np.asarray(r.render_edge(
             jnp.asarray(true_T[:3, :4].astype(np.float32))))
@@ -234,7 +234,7 @@ class TestMapper:
 
         # ground truth object sits 2m ahead in the first camera frame
         gwc0 = np.hstack([np.eye(3), np.zeros((3, 1))])
-        r = Renderer(INTR, capacity=96)
+        r = Renderer(INTR)
         r.set_mesh(V, F)
         true_T = np.eye(4)
         true_T[:3, 3] = [0.0, 0.0, 2.0]
@@ -283,8 +283,8 @@ class TestBatchedCem:
         Vo, Fo = cube_mesh(1.0)
         Vo = Vo * np.array([0.18, 0.5, 0.1], np.float32)
         db = {"lchair": (V, F), "box": (Vo, Fo)}
-        target = Renderer(INTR, capacity=96); target.set_mesh(V, F)
-        occl = Renderer(INTR, capacity=96); occl.set_mesh(Vo, Fo)
+        target = Renderer(INTR); target.set_mesh(V, F)
+        occl = Renderer(INTR); occl.set_mesh(Vo, Fo)
 
         T_t = np.eye(4, dtype=np.float32); T_t[:3, 3] = [0.12, 0.0, 2.2]
         T_o = np.eye(4, dtype=np.float32); T_o[:3, 3] = [0.0, 0.0, 1.4]
@@ -295,7 +295,7 @@ class TestBatchedCem:
         p_t = T_t.copy(); p_t[:3, 3] += [0.08, -0.06, 0.0]
         p_o = T_o.copy(); p_o[:3, 3] += [-0.06, 0.05, 0.0]
 
-        m = MultiMeshRenderer(INTR, capacity=128)
+        m = MultiMeshRenderer(INTR)
         m.set_meshes(db)
         init = np.stack([p_t[:3, :4], p_o[:3, :4]])
         occ = jnp.stack([d_o, d_t])  # each other's (true) depth
@@ -319,13 +319,13 @@ class TestBatchedCem:
         from visma_tpu.semantic import refine_pose_cem_batched
 
         V, F = l_mesh()
-        r = Renderer(INTR, capacity=96); r.set_mesh(V, F)
+        r = Renderer(INTR); r.set_mesh(V, F)
         true_T = np.eye(4); true_T[:3, 3] = [0.05, -0.02, 2.0]
         observed = np.asarray(r.render_edge(
             jnp.asarray(true_T[:3, :4].astype(np.float32))))
         init = true_T.copy(); init[:3, 3] += [0.1, -0.07, 0.0]
 
-        m = MultiMeshRenderer(INTR, capacity=128)
+        m = MultiMeshRenderer(INTR)
         m.set_meshes({"lchair": (V, F)})
         kw = dict(iters=8, samples=64, seed=3)
         p_dev, s_dev = refine_pose_cem_batched(
@@ -349,13 +349,13 @@ class TestBatchedCem:
         from visma_tpu.semantic import refine_pose_cem_batched
 
         V, F = l_mesh()
-        r = Renderer(INTR, capacity=96); r.set_mesh(V, F)
+        r = Renderer(INTR); r.set_mesh(V, F)
         true_T = np.eye(4); true_T[:3, 3] = [0.05, -0.02, 2.0]
         observed = np.asarray(r.render_edge(
             jnp.asarray(true_T[:3, :4].astype(np.float32))))
         init = true_T.copy(); init[:3, 3] += [0.1, -0.07, 0.0]
 
-        m = MultiMeshRenderer(INTR, capacity=128)
+        m = MultiMeshRenderer(INTR)
         m.set_meshes({"lchair": (V, F)})
         refined, _ = refine_pose_cem_batched(
             m, jnp.asarray(observed), init[None, :3, :4], np.array([0]),
@@ -378,15 +378,15 @@ class TestRoiCem:
         Vo, Fo = cube_mesh(1.0)
         Vo = Vo * np.array([0.18, 0.5, 0.1], np.float32)
         db = {"lchair": (V, F), "box": (Vo, Fo)}
-        target = Renderer(INTR, capacity=96); target.set_mesh(V, F)
-        occl = Renderer(INTR, capacity=96); occl.set_mesh(Vo, Fo)
+        target = Renderer(INTR); target.set_mesh(V, F)
+        occl = Renderer(INTR); occl.set_mesh(Vo, Fo)
         T_t = np.eye(4, dtype=np.float32); T_t[:3, 3] = [0.12, 0.0, 2.2]
         T_o = np.eye(4, dtype=np.float32); T_o[:3, 3] = [0.0, 0.0, 1.4]
         from visma_tpu.image.edges import depth_edge
         d_t = target.render_depth(jnp.asarray(T_t[:3, :4]))
         d_o = occl.render_depth(jnp.asarray(T_o[:3, :4]))
         observed = np.asarray(depth_edge(jnp.minimum(d_t, d_o)))
-        m = MultiMeshRenderer(INTR, capacity=128)
+        m = MultiMeshRenderer(INTR)
         m.set_meshes(db)
         return m, observed, T_t, T_o, d_t, d_o
 
@@ -405,8 +405,7 @@ class TestRoiCem:
         xi = jnp.asarray(rng.standard_normal((2, 8, 6)).astype(np.float32)
                          * np.array([0.05] * 3 + [0.04] * 3, np.float32))
 
-        args = (m.Vs, m.Fs, mi, R, t, xi, occ, dt, obs,
-                m.intr, m.tile, m.capacity, False, 10.0)
+        args = (m.Cs, mi, R, t, xi, occ, dt, obs, m.intr, 10.0)
         _, s_full = _render_score_nS(*args)
         roi = (96, 128)
         origins = _roi_origins(t, m.intr, roi)
@@ -534,7 +533,7 @@ class TestRoiSpawnAndWarmup:
     def _scene(self):
         V, F = l_mesh()
         gwc0 = np.hstack([np.eye(3), np.zeros((3, 1))])
-        r = Renderer(INTR, capacity=96)
+        r = Renderer(INTR)
         r.set_mesh(V, F)
         true_T = np.eye(4)
         true_T[:3, 3] = [0.0, 0.0, 2.0]

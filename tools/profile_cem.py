@@ -2,8 +2,7 @@
 trace, and print the per-op time breakdown (raster kernel vs prep vs
 scoring vs everything else).
 
-The settled steady state is the semantic throughput budget (VERDICT r4
-item 1): one fused dispatch per frame at iters x samples with ROI
+The settled steady state is the semantic throughput budget: one fused dispatch per frame at iters x samples with ROI
 windows. This tool times that dispatch in isolation (drained, repeated,
 best-of) and attributes device time to op categories by parsing the
 xplane proto that jax.profiler writes.
@@ -37,7 +36,7 @@ def build_scene(iters, samples, sigma, roi):
     intr = Intrinsics(fx=486.405, fy=535.401, cx=469.199, cy=257.916,
                       rows=500, cols=960, z_near=0.05, z_far=8.0)
     db = bench_mesh_db()
-    mr = MultiMeshRenderer(intr, capacity=128)
+    mr = MultiMeshRenderer(intr)
     mr.set_meshes(db)
     names = ["chair", "desk", "chair", "desk"]
     rng = np.random.default_rng(3)
@@ -60,9 +59,9 @@ def build_scene(iters, samples, sigma, roi):
     sig = jnp.asarray(np.tile(np.concatenate(
         [np.full(3, sigma[1]), np.full(3, sigma[0])]).astype(np.float32),
         (n, 1)))
-    run = fused_cem_executor(mr, CEM_TAU, iters, samples,
+    run = fused_cem_executor(intr, CEM_TAU, iters, samples,
                              cem_n_elite(samples), roi, "poses")
-    args = (mi, jnp.asarray(poses[:, :, :3]), jnp.asarray(poses[:, :, 3]),
+    args = (mr.Cs, mi, jnp.asarray(poses[:, :, :3]), jnp.asarray(poses[:, :, 3]),
             sig, obs, jax.random.PRNGKey(0), jnp.asarray(poses))
     return run, args
 
@@ -104,7 +103,7 @@ def parse_xplane(logdir):
     ev = data.get("traceEvents", [])
     dev_pids = {e["pid"] for e in ev
                 if e.get("ph") == "M" and e.get("name") == "process_name"
-                and "TPU" in e.get("args", {}).get("name", "")}
+                and "/device:" in e.get("args", {}).get("name", "")}
     cats = {}
     ops = {}
     total = 0
@@ -127,7 +126,8 @@ def main():
     ap.add_argument("--roi", type=int, nargs=2, default=[256, 256])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--trace", action="store_true")
-    ap.add_argument("--logdir", default="/tmp/cem_trace")
+    ap.add_argument("--logdir", default=os.path.join(
+        os.path.dirname(__file__), "..", "chiprun_out", "cem_trace"))
     args = ap.parse_args()
 
     import jax

@@ -15,7 +15,7 @@ Layer map (mirrors reference layers L0..L6, see SURVEY.md):
   frontend/  new feature detection + tracking
   filter/    new MSCKF visual-inertial filter
   ba/        new sliding-window bundle adjustment + pose graph
-  dist/      new mesh/collective layer (ICI-aware sharded BA)
+  dist/      new mesh/collective layer (collective-aware sharded BA)
   align/     L4  ICP / Umeyama / scene registration
   eval/      L4  surface & pose error metrics, result assembly
   cli/       L5  command-line tools mirroring reference examples

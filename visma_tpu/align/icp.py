@@ -37,7 +37,7 @@ def _estimate_normals(points: jnp.ndarray, valid, k: int = 12,
     Tiled over query chunks so peak memory is chunk*N, not N*N — the
     reference operating point is 50k samples/model (cfg/tool.json:31,
     evaluation.cpp:258-271), where a dense N^2 matrix would be ~10 GB.
-    Distances ride the MXU as a matmul (||a-b||^2 expansion).
+    Distances are a matmul (||a-b||^2 expansion).
     """
     N = points.shape[0]
     pad = (-N) % chunk

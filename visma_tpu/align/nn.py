@@ -1,9 +1,10 @@
-"""Brute-force nearest neighbors, MXU-shaped.
+"""Brute-force nearest neighbors as matmuls.
 
-No trees on TPU: pairwise distances are a matmul
+No trees on the device: pairwise distances are a matmul
 (||a-b||^2 = ||a||^2 + ||b||^2 - 2 a.b), tiled over query chunks so memory
-stays bounded. O(N*M) flops ride the MXU, which beats tree traversal on
-this hardware for the point counts the eval pipeline uses (<= 500k x 50k).
+stays bounded. O(N*M) flops run as dense matmuls, which suit the
+accelerator better than tree traversal for the point counts the eval
+pipeline uses (<= 500k x 50k).
 """
 from __future__ import annotations
 

@@ -23,10 +23,6 @@ def main(argv=None):
     ap.add_argument("--samples", type=int, default=5000)
     args = ap.parse_args(argv)
 
-    from visma_tpu.utils.platform import configure_platform
-
-    configure_platform()
-
     from visma_tpu.align import register_model_to_scene
     from visma_tpu.eval import sample_mesh
     from visma_tpu.io import load_mesh, load_ply

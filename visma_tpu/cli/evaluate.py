@@ -11,10 +11,6 @@ def main(argv=None):
     ap.add_argument("config", help="tool.json (reference cfg/tool.json keys)")
     args = ap.parse_args(argv)
 
-    from visma_tpu.utils.platform import configure_platform
-
-    configure_platform()
-
     from visma_tpu.eval import quantitative_evaluation
     from visma_tpu.io import load_json
     from visma_tpu.utils import TermColor

@@ -15,10 +15,6 @@ def main(argv=None):
     ap.add_argument("output")
     args = ap.parse_args(argv)
 
-    from visma_tpu.utils.platform import configure_platform
-
-    configure_platform()
-
     from visma_tpu.io import VlslamDatasetLoader
 
     loader = VlslamDatasetLoader(args.dataroot)

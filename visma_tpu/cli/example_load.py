@@ -15,10 +15,6 @@ def main(argv=None):
                     help="directory for overlay images instead of a GUI")
     args = ap.parse_args(argv)
 
-    from visma_tpu.utils.platform import configure_platform
-
-    configure_platform()
-
     from visma_tpu.io import VlslamDatasetLoader
     from visma_tpu.io.loader import edge_u8
 

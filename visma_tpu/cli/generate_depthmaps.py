@@ -45,10 +45,6 @@ def main(argv=None):
     ap.add_argument("--output", default=None, help="default: dataroot")
     args = ap.parse_args(argv)
 
-    from visma_tpu.utils.platform import configure_platform
-
-    configure_platform()
-
     from visma_tpu.io import VlslamDatasetLoader, load_json, save_mat
     from visma_tpu.io.json_io import matrix_from_json
 

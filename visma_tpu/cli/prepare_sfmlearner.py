@@ -33,10 +33,6 @@ def main(argv=None):
     ap.add_argument("--process-depth", action="store_true")
     args = ap.parse_args(argv)
 
-    from visma_tpu.utils.platform import configure_platform
-
-    configure_platform()
-
     import cv2
 
     from visma_tpu.io import VlslamDatasetLoader, load_mat

@@ -16,10 +16,6 @@ def main(argv=None):
     ap.add_argument("config", help="json configuration")
     args = ap.parse_args(argv)
 
-    from visma_tpu.utils.platform import configure_platform
-
-    configure_platform()
-
     import jax.numpy as jnp
 
     from visma_tpu.io import load_json, load_mesh, save_mat

@@ -93,10 +93,6 @@ def main(argv=None):
                          "many objects before the first frame")
     args = ap.parse_args(argv)
 
-    from visma_tpu.utils.platform import configure_platform
-
-    configure_platform()
-
     import jax.numpy as jnp
 
     from visma_tpu.render import Intrinsics, Renderer
@@ -124,7 +120,7 @@ def main(argv=None):
         # ground truth: the L-mesh 2 m ahead, slightly off-axis
         true_T = np.eye(4)
         true_T[:3, 3] = [0.1, -0.05, 2.0]
-        gt_renderer = Renderer(intr, capacity=96)
+        gt_renderer = Renderer(intr)
         gt_renderer.set_mesh(*db["lchair"])
 
         N = args.synthetic

@@ -46,10 +46,6 @@ def main(argv=None):
                     help="image pyramid levels (--images mode)")
     ap.add_argument("--cell", type=int, default=32,
                     help="detection grid cell in px (--images mode)")
-    ap.add_argument("--fused-klt", choices=("auto", "on", "off"),
-                    default="auto",
-                    help="fused Pallas LK kernel (--images mode; auto = "
-                         "fused on TPU, windowed elsewhere)")
     ap.add_argument("--ba", choices=("off", "dense", "sharded"),
                     default="off",
                     help="batch BA trajectory refinement after the filter "
@@ -64,10 +60,6 @@ def main(argv=None):
                     help="emit a jax.profiler trace to LOGDIR plus a "
                          "host-side Timer report")
     args = ap.parse_args(argv)
-
-    from visma_tpu.utils.platform import configure_platform
-
-    configure_platform()
 
     import jax.numpy as jnp
 
@@ -171,9 +163,7 @@ def main(argv=None):
             dt0 = max(float(ts[1] - ts[0]), 1e-6)
             v0 = (ref_p[1] - ref_p[0]) / dt0
 
-        fused = {"auto": None, "on": True, "off": False}[args.fused_klt]
-        pipe = VioPipeline(cfg, levels=args.levels, cell=args.cell,
-                           fused_klt=fused)
+        pipe = VioPipeline(cfg, levels=args.levels, cell=args.cell)
         st0 = pipe.init(jnp.asarray(images[0]), R0=R0, p0=p0, v0=v0)
         if args.profile:
             timer.tick("pipeline_scan")

@@ -12,10 +12,6 @@ def main(argv=None):
                     help="save a PNG instead of showing a window")
     args = ap.parse_args(argv)
 
-    from visma_tpu.utils.platform import configure_platform
-
-    configure_platform()
-
     import matplotlib
 
     if args.output:

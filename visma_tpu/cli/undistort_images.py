@@ -18,10 +18,6 @@ def main(argv=None):
                     help="calibration file (default: hardcoded Corvis ATAN)")
     args = ap.parse_args(argv)
 
-    from visma_tpu.utils.platform import configure_platform
-
-    configure_platform()
-
     import cv2
     import jax.numpy as jnp
     import numpy as np

@@ -39,7 +39,7 @@ def _animate(loader, result, mesh_db, out_dir: str, max_frames: int,
     intr = Intrinsics(fx=float(p[0]), fy=float(p[1]), cx=float(p[2]),
                       cy=float(p[3]), rows=cam.rows, cols=cam.cols,
                       z_near=0.05, z_far=10.0)
-    mr = MultiMeshRenderer(intr, capacity=128)
+    mr = MultiMeshRenderer(intr)
     mr.set_meshes(mesh_db)
 
     os.makedirs(out_dir, exist_ok=True)
@@ -119,10 +119,6 @@ def main(argv=None):
                          "(PNG sequence + mp4) via the TPU rasterizer")
     ap.add_argument("--max-frames", type=int, default=0)
     args = ap.parse_args(argv)
-
-    from visma_tpu.utils.platform import configure_platform
-
-    configure_platform()
 
     import matplotlib
 

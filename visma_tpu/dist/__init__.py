@@ -4,7 +4,7 @@ TPU-native parallelism (SURVEY.md §2.3): XLA collectives over a
 jax.sharding.Mesh — no NCCL/MPI. The flagship component is landmark-
 sharded bundle adjustment: each device Schur-reduces its landmark shard
 into the (6K x 6K) reduced camera system, one psum over the mesh sums the
-blocks across ICI, the dense solve is replicated, and landmark
+blocks across the interconnect, the dense solve is replicated, and landmark
 back-substitution stays local to each shard.
 """
 

@@ -1,38 +1,46 @@
 """Multi-host orchestration helpers.
 
-On a real pod slice each host process calls `initialize()` once before any
-jax op (jax.distributed handles the DCN rendezvous; ICI collectives then
-span the full slice automatically). Failure detection / recovery follows
-SURVEY §5: workers checkpoint every K steps (visma_tpu.utils.checkpoint)
-and touch a Heartbeat file; a Watchdog supervises the worker process,
-detects death or a stale heartbeat, and restarts it — the worker resumes
-from its latest snapshot (checkpoint-restart recovery, the TPU idiom for
-elastic training). Exercised as a real kill-and-recover drill in
-tests/test_multihost.py.
+Each process calls `initialize()` once before any jax op
+(jax.distributed handles the rendezvous; collectives then span every
+process's devices). On a host with several GPUs, each process takes only
+the cards LOCAL_DEVICE_IDS names, so processes do not all claim every card.
+Failure detection / recovery follows SURVEY §5: workers checkpoint every K
+steps (visma_tpu.utils.checkpoint) and touch a Heartbeat file; a Watchdog
+supervises the worker process, detects death or a stale heartbeat, and
+restarts it — the worker resumes from its latest snapshot
+(checkpoint-restart recovery). Exercised as a real kill-and-recover drill
+in tests/test_multihost.py.
 """
 from __future__ import annotations
 
 import os
 import subprocess
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import jax
 
 
 def initialize(coordinator: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None) -> None:
+               process_id: Optional[int] = None,
+               local_device_ids: Optional[Sequence[int]] = None) -> None:
     """jax.distributed.initialize with env-var defaults
-    (COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID). No-op when
+    (COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID, and LOCAL_DEVICE_IDS
+    as a comma-separated list such as "0" or "2,3"). No-op when
     single-process."""
     coordinator = coordinator or os.environ.get("COORDINATOR_ADDRESS")
     if coordinator is None:
         return
+    if local_device_ids is None and os.environ.get("LOCAL_DEVICE_IDS"):
+        local_device_ids = [int(x) for x in
+                            os.environ["LOCAL_DEVICE_IDS"].split(",")]
+    if process_id is None:
+        process_id = int(os.environ["PROCESS_ID"])
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes or int(os.environ["NUM_PROCESSES"]),
-        process_id=process_id or int(os.environ["PROCESS_ID"]))
+        process_id=process_id, local_device_ids=local_device_ids)
 
 
 class Heartbeat:

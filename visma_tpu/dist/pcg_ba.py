@@ -10,10 +10,10 @@ preconditioned conjugate gradients where one S@v product is
     local:  u = Hpp_loc v  -  Hpl (Hll^-1 (Hpl^T v))     [batched einsums]
     comm:   Sv = psum(u, "d")                            [6K floats]
 
-so per-CG-iteration communication is O(6K) on the ICI ring instead of
+so per-CG-iteration communication is O(6K) on the interconnect instead of
 O((6K)^2) per GN step — the long-sequence/many-keyframe scaling shape
 promised in SURVEY.md §2.3 (ring-reduction of per-block Hessians; XLA
-lowers the psum to a ring reduce-scatter + all-gather over ICI).
+lowers the psum to a ring reduce-scatter + all-gather over the interconnect).
 
 Preconditioner: block-Jacobi with the exact 6x6 diagonal blocks of S
 (one (K,6,6) psum per GN step). Gauge fixing, Levenberg damping, floor,
@@ -33,12 +33,13 @@ from jax.sharding import Mesh, PartitionSpec as P
 from visma_tpu.ba.gauss_newton import (_apply, backsub_landmarks,
                                        build_blocks, total_cost)
 from visma_tpu.ba.problem import BaProblem
-from visma_tpu.dist.sharded_ba import _shard_problem
+from visma_tpu.dist.sharded_ba import _baseline, _shard_problem
 
 _GAUGE_W = 1e6
 
 
-def _schur_pieces(prob_shard: BaProblem, damping, scale_weight):
+def _schur_pieces(prob_shard: BaProblem, damping, scale_weight,
+                  anchor=None):
     """Everything one GN step needs, built from the local landmark shard.
 
     Returns (matvec, Minv (K,6,6), b (6K,), aux) where matvec is the
@@ -63,8 +64,10 @@ def _schur_pieces(prob_shard: BaProblem, damping, scale_weight):
     notg = ~gauge
 
     # scale-anchor prior on the last pose's position rows (same
-    # construction as build_reduced_system)
-    anchor = jnp.linalg.norm(prob_shard.p[-1] - prob_shard.p[0])
+    # construction as build_reduced_system); anchor=None holds the
+    # current baseline
+    if anchor is None:
+        anchor = _baseline(prob_shard)
     dvec = prob_shard.p[K - 1] - prob_shard.p[0]
     dn = jnp.maximum(jnp.linalg.norm(dvec), 1e-9)
     e = dvec / dn
@@ -137,14 +140,15 @@ def _pcg_step(mesh: Mesh, cg_iters: int):
     @functools.partial(
         jax.shard_map, mesh=mesh,
         in_specs=(BaProblem(R=P(), p=P(), X=P("d"), obs=P("d"),
-                            mask=P("d"), intr=P()), P()),
+                            mask=P("d"), intr=P()), P(), P()),
         out_specs=(BaProblem(R=P(), p=P(), X=P("d"), obs=P("d"),
                              mask=P("d"), intr=P()), P()),
     )
-    def step(prob_shard: BaProblem, damping):
+    def step(prob_shard: BaProblem, damping, anchor):
         with jax.default_matmul_precision("highest"):
             matvec, Minv, b, aux = _schur_pieces(prob_shard, damping,
-                                                 scale_weight=1e6)
+                                                 scale_weight=1e6,
+                                                 anchor=anchor)
             dxp, _hist = _pcg(matvec, Minv, b, cg_iters)
             dxl = backsub_landmarks(aux, dxp)
             new = _apply(prob_shard, dxp, dxl)
@@ -160,9 +164,11 @@ def _jitted_pcg_solver(mesh: Mesh, iters: int, cg_iters: int):
 
     @jax.jit
     def run(p0, lam0):
+        anchor = _baseline(p0)
+
         def body(carry, _):
             cur, lam, cost = carry
-            cand, cand_cost = step(cur, lam)
+            cand, cand_cost = step(cur, lam, anchor)
             better = cand_cost < cost
             nxt = jax.tree.map(lambda a, b: jnp.where(better, a, b),
                                cand, cur)

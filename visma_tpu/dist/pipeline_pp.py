@@ -10,7 +10,7 @@ before blocking on filter(c), so with two real chips JAX's async dispatch
 overlaps stage A of chunk c+1 with stage B of chunk c — software pipelining
 with the compiler/runtime doing the scheduling, no hand-rolled queues. The
 inter-stage payload per frame is ~K*(8+status) bytes (feature table), ~5 KB
-at K=96 — negligible on ICI.
+at K=96 — negligible on the interconnect.
 
 Numerically IDENTICAL to the single-device VioPipeline.run: stage
 boundaries change placement, not math (asserted in tests/test_pp.py).

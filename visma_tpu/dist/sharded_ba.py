@@ -5,14 +5,14 @@ axis (landmarks are conditionally independent given poses — the Schur
 complement is a SUM of per-landmark contributions). Per device:
 
   local build:   S_local, b_local from the device's landmark shard
-  collective:    (S, b) = psum over "d"  -- one (6K)^2 all-reduce on ICI
+  collective:    (S, b) = psum over "d"  -- one (6K)^2 all-reduce on the interconnect
   replicated:    dense Cholesky solve for pose updates
   local:         landmark back-substitution on the shard
 
 Communication is O((6K)^2) per iteration, independent of L — the weak-
 scaling shape BASELINE.json asks for (more landmarks per host at fixed
 K communicates the same bytes). XLA lowers the psum to ring
-reduce-scatter+all-gather over ICI.
+reduce-scatter+all-gather over the interconnect.
 """
 from __future__ import annotations
 
@@ -49,20 +49,25 @@ def _shard_problem(prob: BaProblem, mesh: Mesh) -> Tuple[BaProblem, int]:
     return padded, L
 
 
+def _baseline(prob: BaProblem):
+    """||p_last - p0|| of the problem as given: the scale anchor every
+    step of a solve pins, as `ba_solve` does."""
+    return jnp.linalg.norm(prob.p[-1] - prob.p[0])
+
+
 def _sharded_step(mesh: Mesh):
     """Build the shard_map'd GN step for a given mesh."""
 
     @functools.partial(
         jax.shard_map, mesh=mesh,
         in_specs=(BaProblem(R=P(), p=P(), X=P("d"), obs=P("d"),
-                            mask=P("d"), intr=P()), P()),
+                            mask=P("d"), intr=P()), P(), P()),
         out_specs=(BaProblem(R=P(), p=P(), X=P("d"), obs=P("d"),
                              mask=P("d"), intr=P()), P()),
     )
-    def step(prob_shard: BaProblem, damping):
+    def step(prob_shard: BaProblem, damping, anchor):
         with jax.default_matmul_precision("highest"):
             n_dev = jax.lax.psum(1, "d")
-            anchor = jnp.linalg.norm(prob_shard.p[-1] - prob_shard.p[0])
             # poses are replicated, so the scale prior is added on every
             # shard; divide its weight by the mesh size to keep the psum'd
             # total equal to the single-device prior
@@ -103,9 +108,11 @@ def _jitted_solver(mesh: Mesh, iters: int):
 
     @jax.jit
     def run(p0, lam0):
+        anchor = _baseline(p0)
+
         def body(carry, _):
             cur, lam, cost = carry
-            cand, cand_cost = step(cur, lam)
+            cand, cand_cost = step(cur, lam, anchor)
             better = cand_cost < cost
             nxt = jax.tree.map(lambda a, b: jnp.where(better, a, b), cand, cur)
             lam_new = jnp.where(better, jnp.maximum(lam * 0.5, 1e-6),
@@ -124,7 +131,8 @@ def _jitted_solver(mesh: Mesh, iters: int):
 def sharded_ba_step(prob: BaProblem, mesh: Mesh, damping: float = 1e-3):
     """One distributed GN step. Returns (problem, cost)."""
     padded, L = _shard_problem(prob, mesh)
-    new, cost = _jitted_step(mesh)(padded, jnp.asarray(damping, jnp.float32))
+    new, cost = _jitted_step(mesh)(padded, jnp.asarray(damping, jnp.float32),
+                                   _baseline(prob))
     return BaProblem(R=new.R, p=new.p, X=new.X[:L], obs=new.obs[:L],
                      mask=new.mask[:L], intr=new.intr), cost
 

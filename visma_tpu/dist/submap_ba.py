@@ -171,13 +171,33 @@ def submap_ba_solve(prob: BaProblem, mesh: Mesh, iters: int = 10,
 
     sharded = jax.device_put(chunks, NamedSharding(mesh, P("d")))
     sol = _jitted_local_solver(mesh, iters)(sharded)
-    stitched = _stitch(prob, sol, info)
+    stitched = _pin_scale(_stitch(prob, sol, info), prob)
     if polish_iters > 0:
         from visma_tpu.dist.sharded_ba import sharded_ba_solve
 
         stitched, _ = sharded_ba_solve(stitched, mesh, iters=polish_iters,
                                        solver=polish_solver)
     return stitched, info
+
+
+def _pin_scale(stitched: BaProblem, prob: BaProblem) -> BaProblem:
+    """Scale the stitched scene about pose 0 so its end-to-end baseline
+    ||p_last - p0|| equals the input's, the anchor `ba_solve` pins.
+
+    Each chunk pins only its own baseline, and the SE(3) stitch cannot
+    correct scale, so the composed trajectory drifts along the monocular
+    scale gauge (about 5% with 8 keyframes per chunk); the global polish
+    then holds whatever scale it is handed. Reprojection cost is invariant
+    under this similarity, so only the gauge moves."""
+    p = np.asarray(stitched.p)
+    p0 = np.asarray(prob.p)
+    s = np.linalg.norm(p0[-1] - p0[0]) / max(
+        np.linalg.norm(p[-1] - p[0]), 1e-9)
+    c = p[0]
+    return BaProblem(
+        R=stitched.R, p=jnp.asarray(c + s * (p - c), jnp.float32),
+        X=jnp.asarray(c + s * (np.asarray(stitched.X) - c), jnp.float32),
+        obs=stitched.obs, mask=stitched.mask, intr=stitched.intr)
 
 
 def _stitch(prob: BaProblem, sol: BaProblem, info) -> BaProblem:

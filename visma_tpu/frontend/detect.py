@@ -4,13 +4,11 @@ Grid bucketing (best corner per cell, then global top-k over cells) gives
 spatially spread features with fully static shapes — no dynamic
 suppression loops.
 
-TPU path: the whole response chain (Sobel, structure tensor, box sums,
-min-eigenvalue, 3x3 NMS, border/threshold mask) is ONE fused Pallas VMEM
-kernel — ~50 VPU passes that XLA only partially fuses cost ~370 us at
-500x960; the kernel reads the image once. Cell bucketing avoids the
-(gh,cell,gw,cell) transpose relayout with two stride-`cell`
-reduce_windows (per-cell max, then per-cell argmax of the masked linear
-index).
+The response chain (Sobel, structure tensor, box sums, min-eigenvalue,
+3x3 NMS, border/threshold mask) is plain XLA stencil code, which fuses.
+Cell bucketing avoids the (gh,cell,gw,cell) transpose relayout with two
+stride-`cell` reduce_windows (per-cell max, then per-cell argmax of the
+masked linear index).
 """
 from __future__ import annotations
 
@@ -18,115 +16,11 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from visma_tpu.image.edges import shi_tomasi_response
 
 
-_HALO = 4  # sobel (1) + 5x5 box (2) + NMS (1)
-
-
-def _score_kernel(img_ref, out_ref, *, band: int, window: int):
-    """Fused Shi-Tomasi + 3x3 NMS for one row band (grid step).
-
-    Mirrors the XLA path exactly in the band interior: sobel_gradients
-    (zero-padded shifts, /8) -> structure tensor -> separable zero-padded
-    `window` box sums -> 0.5*(A+C-sqrt((A-C)^2+4B^2)) -> 3x3 NMS. The
-    input is the zero-padded image resident in VMEM; each step processes
-    `band` rows plus a 2*_HALO overlap so interior values are exact
-    (temporaries are band-sized — a whole-image fusion at 500x960 needs
-    ~25 MB of stack and blows the 16 MB VMEM budget).
-    """
-    i = pl.program_id(0)
-    y0 = pl.multiple_of(i * band, 8)
-    v = img_ref[pl.ds(y0, band + 2 * _HALO), :]
-    H, W = v.shape
-
-    def shift(a, dy, dx, fill=0.0):
-        """a sampled at (y+dy, x+dx), out-of-bounds -> fill."""
-        if dy > 0:
-            a = jnp.concatenate([a[dy:], jnp.full((dy, W), fill, a.dtype)], 0)
-        elif dy < 0:
-            a = jnp.concatenate([jnp.full((-dy, W), fill, a.dtype),
-                                 a[:dy]], 0)
-        if dx > 0:
-            a = jnp.concatenate([a[:, dx:],
-                                 jnp.full((H, dx), fill, a.dtype)], 1)
-        elif dx < 0:
-            a = jnp.concatenate([jnp.full((H, -dx), fill, a.dtype),
-                                 a[:, :dx]], 1)
-        return a
-
-    east_west = shift(v, 0, 1) - shift(v, 0, -1)
-    ne_nw = shift(v, -1, 1) - shift(v, -1, -1)
-    se_sw = shift(v, 1, 1) - shift(v, 1, -1)
-    gx = (ne_nw + 2.0 * east_west + se_sw) / 8.0
-    south_north = shift(v, 1, 0) - shift(v, -1, 0)
-    gy = ((shift(v, 1, -1) - shift(v, -1, -1)) + 2.0 * south_north
-          + (shift(v, 1, 1) - shift(v, -1, 1))) / 8.0
-
-    a, b, c = gx * gx, gx * gy, gy * gy
-    r = window // 2
-
-    def box(x):
-        sy = x
-        acc = x
-        for k in range(1, r + 1):
-            acc = acc + shift(sy, k, 0) + shift(sy, -k, 0)
-        sx = acc
-        acc2 = acc
-        for k in range(1, r + 1):
-            acc2 = acc2 + shift(sx, 0, k) + shift(sx, 0, -k)
-        return acc2
-
-    A, B, C = box(a), box(b), box(c)
-    disc = jnp.sqrt(jnp.maximum((A - C) ** 2 + 4.0 * B * B, 0.0))
-    resp = 0.5 * (A + C - disc)
-
-    neigh = resp
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            if dy or dx:
-                neigh = jnp.maximum(neigh, shift(resp, dy, dx, -jnp.inf))
-    nms = jnp.where(resp >= neigh, resp, 0.0)
-    out_ref[...] = nms[_HALO : _HALO + band, _HALO : W - _HALO]
-
-
-@functools.partial(jax.jit, static_argnames=("window", "border",
-                                             "min_response", "band",
-                                             "interpret"))
-def corner_score_pallas(image: jnp.ndarray, window: int = 5,
-                        border: int = 8, min_response: float = 1e-4,
-                        band: int = 128,
-                        interpret: bool = False) -> jnp.ndarray:
-    """Masked NMS'd Shi-Tomasi score map, fused in one Pallas kernel
-    (band-gridded; see _score_kernel). Identical to _corner_score_xla
-    inside the border mask (border >= _HALO keeps the global image edge,
-    where the NMS padding conventions differ, masked in both paths)."""
-    assert border >= _HALO
-    H, W = image.shape
-    nb = -(-H // band)
-    padded = jnp.pad(image.astype(jnp.float32),
-                     ((_HALO, nb * band - H + _HALO), (_HALO, _HALO)))
-    out = pl.pallas_call(
-        functools.partial(_score_kernel, band=band, window=window),
-        grid=(nb,),
-        in_specs=[pl.BlockSpec(padded.shape, lambda i: (0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((band, W), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((nb * band, W), jnp.float32),
-        interpret=interpret,
-    )(padded)[:H]
-    row = jnp.arange(H)[:, None]
-    col = jnp.arange(W)[None, :]
-    inside = ((row >= border) & (row < H - border)
-              & (col >= border) & (col < W - border))
-    return jnp.where(inside & (out > min_response), out, 0.0)
-
-
-def _corner_score_xla(image: jnp.ndarray, window: int, border: int,
+def corner_score(image: jnp.ndarray, window: int, border: int,
                       min_response: float) -> jnp.ndarray:
     resp = shi_tomasi_response(image, window=window)
     neigh = jax.lax.reduce_window(resp, -jnp.inf, jax.lax.max, (3, 3),
@@ -141,12 +35,11 @@ def _corner_score_xla(image: jnp.ndarray, window: int, border: int,
 
 
 @functools.partial(jax.jit, static_argnames=("max_features", "cell",
-                                             "border", "use_pallas"))
+                                             "border"))
 def detect_features(image: jnp.ndarray, max_features: int = 64,
                     cell: int = 16, border: int = 8,
                     min_response: float = 1e-4,
-                    occupied: jnp.ndarray = None,
-                    use_pallas: bool = None):
+                    occupied: jnp.ndarray = None):
     """Detect up to `max_features` corners.
 
     image: (H, W) float32 (grayscale, any scale).
@@ -155,13 +48,8 @@ def detect_features(image: jnp.ndarray, max_features: int = 64,
 
     Returns (xy (N,2) float32 pixel coords, score (N,), valid (N,)).
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     H, W = image.shape
-    if use_pallas:
-        score = corner_score_pallas(image, 5, border, min_response)
-    else:
-        score = _corner_score_xla(image, 5, border, min_response)
+    score = corner_score(image, 5, border, min_response)
 
     # best corner per cell without the (gh,cell,gw,cell) transpose:
     # stride-`cell` reduce_windows give the per-cell max and the per-cell

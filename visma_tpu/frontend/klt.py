@@ -1,26 +1,23 @@
 """Pyramidal inverse-compositional Lucas-Kanade tracking.
 
-TPU-first formulation (the r2 rewrite): per-feature RANDOM ACCESS is the
-enemy on TPU — a vmapped dynamic_slice lowers to a gather that costs
-~0.4 ms per call regardless of size (measured on v5e), and classic LK
-needs ~40 of them per frame. Instead:
+Windowed formulation (the production path): instead of one per-feature
+random access per LK iteration,
 
   1. per pyramid level, extract one (WIN x WIN) window per feature with
-     ONE-HOT SELECTION MATMULS (rows then columns) — the MXU does the
-     gathering;
+     ONE-HOT SELECTION MATMULS (rows then columns);
   2. every LK iteration samples its patch INSIDE the windows with
      separable bilinear interpolation expressed as two tiny batched
      matmuls (P = A @ W @ B^T, where A/B carry the two-tap bilinear
-     weights) — zero gathers, all MXU/VPU, fully batched over features.
+     weights) — no gathers, fully batched over features.
 
 Window margins bound the refinement each level may add on top of the
 coarse-to-fine initial guess; samples clamp to the window (features that
 really moved further fail the residual / forward-backward gates, matching
 the old implementation's border-clamp behavior).
 
-Selection/sampling matmuls run at HIGHEST precision: with the TPU default
-bf16 passes, "selecting" a pixel would round its intensity to 8 mantissa
-bits and corrupt the subpixel solve.
+Selection/sampling matmuls run at HIGHEST precision: at a reduced
+precision (TF32 or bf16 passes), "selecting" a pixel would round its
+intensity and corrupt the subpixel solve.
 
 The pre-r2 gather-based implementation is kept as
 `track_features_gather` (the correctness oracle in tests/test_frontend).
@@ -125,8 +122,8 @@ def track_features_gather(prev_pyr, cur_pyr, pts: jnp.ndarray,
                           fb_thresh: float = 1.0):
     """Pre-r2 gather-based tracker (vmap of per-feature dynamic slices).
 
-    Same contract as track_features; kept as the test oracle — it is
-    ~8x slower on TPU (one gather per LK iteration)."""
+    Same contract as track_features; kept as the test oracle (one gather
+    per LK iteration)."""
     H, W = cur_pyr[0].shape
 
     def one(pt, ok_in):
@@ -176,7 +173,7 @@ def _extract_windows(img: jnp.ndarray, centers: jnp.ndarray, win: int):
     rows = y0[:, None] + jnp.arange(win, dtype=jnp.int32)[None, :]  # (K,win)
     A = (rows[:, :, None]
          == jnp.arange(H, dtype=jnp.int32)[None, None, :]).astype(img.dtype)
-    # rows-then-columns: the MXU is the gather unit
+    # rows-then-columns: the matmul unit does the gathering
     R = jnp.einsum("kih,hw->kiw", A, img, precision=_HI)
 
     cols = x0[:, None] + jnp.arange(win, dtype=jnp.int32)[None, :]
@@ -204,7 +201,7 @@ def _bilinear_taps(off: jnp.ndarray, m: int, win: int):
 def _sample_windows(wins: jnp.ndarray, off_xy: jnp.ndarray, m: int):
     """Sample an (m, m) bilinear patch from each window; patch pixel (i,j)
     sits at window coord (off_y + i, off_x + j). wins (K, win, win);
-    off_xy (K, 2) float. Separable: P = A @ W @ B^T on the MXU."""
+    off_xy (K, 2) float. Separable: P = A @ W @ B^T."""
     win = wins.shape[-1]
     A = _bilinear_taps(off_xy[:, 1], m, win)                  # rows
     B = _bilinear_taps(off_xy[:, 0], m, win)                  # cols

@@ -5,7 +5,6 @@ Produces exactly the (ids, xp, valid) triple the MSCKF filter ingests
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import jax
@@ -13,7 +12,6 @@ import jax.numpy as jnp
 
 from visma_tpu.frontend.detect import detect_features
 from visma_tpu.frontend.klt import track_features
-from visma_tpu.frontend.klt_fused import track_features_fused
 from visma_tpu.frontend.pyramid import build_pyramid
 
 
@@ -38,22 +36,11 @@ class FeatureTracker:
     """KLT tracker with fixed capacity and grid replenishment."""
 
     def __init__(self, max_features: int = 64, levels: int = 3,
-                 radius: int = 5, cell: int = 16, fused: bool = None):
-        """fused=True swaps the windowed-matmul LK (klt.track_features)
-        for the single-Pallas-kernel-per-level variant
-        (klt_fused.track_features_fused) — same math and gates, fewer
-        dispatches; see klt_fused's module docstring for the window-margin
-        and border divergences. Default (None): fused on TPU, windowed
-        elsewhere — measured on v5e at 500x960/96 features/4 levels:
-        fused 3.01 ms/frame vs windowed 4.06 (parity 1e-4 px, 72/73 joint
-        accepts; tools/profile_stages.py)."""
+                 radius: int = 5, cell: int = 16):
         self.max_features = max_features
         self.levels = levels
         self.radius = radius
         self.cell = cell
-        if fused is None:
-            fused = jax.default_backend() == "tpu"
-        self.fused = fused
         self._step = jax.jit(self._step_impl)
 
     def init(self, image: jnp.ndarray) -> TrackerState:
@@ -75,8 +62,7 @@ class FeatureTracker:
         K = self.max_features
         cur_pyr = tuple(build_pyramid(image, self.levels))
         live = state.ids >= 0
-        track = track_features_fused if self.fused else track_features
-        new_pos, ok = track(state.pyr, cur_pyr, state.pos, live,
+        new_pos, ok = track_features(state.pyr, cur_pyr, state.pos, live,
                             radius=self.radius, levels=self.levels)
         ok = ok & live
         ids = jnp.where(ok, state.ids, -1)

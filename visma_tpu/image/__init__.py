@@ -5,16 +5,16 @@ from visma_tpu.image.undistort import (
     AtanModel, RadTanModel, Undistorter, undistorter_from_file,
     CORVIS_ATAN_CALIB,
 )
-from visma_tpu.image.remap import bilinear_remap, bilinear_remap_pallas
+from visma_tpu.image.remap import bilinear_remap
 from visma_tpu.image.edges import (
-    depth_edge, depth_edge_pallas, linearize_gl_depth, soft_threshold,
+    depth_edge, linearize_gl_depth, soft_threshold,
     sobel_gradients, shi_tomasi_response,
 )
 
 __all__ = [
     "AtanModel", "RadTanModel", "Undistorter", "undistorter_from_file",
     "CORVIS_ATAN_CALIB",
-    "bilinear_remap", "bilinear_remap_pallas",
-    "depth_edge", "depth_edge_pallas", "linearize_gl_depth", "soft_threshold",
+    "bilinear_remap",
+    "depth_edge", "linearize_gl_depth", "soft_threshold",
     "sobel_gradients", "shi_tomasi_response",
 ]

@@ -2,10 +2,9 @@
 
 Reference parity: render/shaders/edge_detection.frag (3x3 neighborhood
 average-absolute-difference on linearized depth with soft threshold
-[0.05, 0.10] and a 5-pixel border guard). TPU-first: the op is a pure
-stencil, expressed both as fused XLA shifts (`depth_edge`) and as a Pallas
-VMEM kernel batched over pose hypotheses (`depth_edge_pallas`) — the
-throughput-critical inner loop of object-pose likelihood evaluation.
+[0.05, 0.10] and a 5-pixel border guard). The op is a pure stencil,
+expressed as fused XLA shifts (`depth_edge`) batched over pose
+hypotheses — the inner loop of object-pose likelihood evaluation.
 
 Divergence from the reference renderer: our rasterizer produces *linear*
 depth directly (no OpenGL nonlinear z-buffer), so `depth_edge` takes metric
@@ -19,8 +18,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 THRESH_LOW = 0.05   # edge_detection.frag:14
 THRESH_HIGH = 0.10  # edge_detection.frag:15
@@ -80,67 +77,6 @@ def depth_edge(depth: jnp.ndarray, lo: float = THRESH_LOW,
 
 
 # ---------------------------------------------------------------------------
-# Pallas kernel: one grid step per batch element (pose hypothesis), image
-# resident in VMEM, shifts as static slices.
-# ---------------------------------------------------------------------------
-
-def _edge_kernel(v_ref, out_ref, *, lo: float, hi: float):
-    v = v_ref[0]
-    H, W = v.shape
-    v = jnp.where(v > 0, v, -1.0)
-
-    z = jnp.zeros((1, W), v.dtype)
-    up = jnp.concatenate([v[1:], z], axis=0)        # v shifted up (y+1)
-    dn = jnp.concatenate([z, v[:-1]], axis=0)       # y-1
-    zc = jnp.zeros((H, 1), v.dtype)
-    rt = jnp.concatenate([v[:, 1:], zc], axis=1)    # x+1
-    lf = jnp.concatenate([zc, v[:, :-1]], axis=1)   # x-1
-
-    ul = jnp.concatenate([dn[:, 1:], zc], axis=1)   # (x+1, y-1)... see below
-    # diagonals: (x-1,y-1)-(x+1,y+1) and (x-1,y+1)-(x+1,y-1)
-    d00 = jnp.concatenate([zc, dn[:, :-1]], axis=1)   # x-1, y-1
-    d11 = jnp.concatenate([up[:, 1:], zc], axis=1)    # x+1, y+1
-    d01 = jnp.concatenate([zc, up[:, :-1]], axis=1)   # x-1, y+1
-    d10 = jnp.concatenate([dn[:, 1:], zc], axis=1)    # x+1, y-1
-    del ul
-
-    delta = 0.25 * (jnp.abs(lf - rt) + jnp.abs(up - dn)
-                    + jnp.abs(d00 - d11) + jnp.abs(d01 - d10))
-    out = jnp.clip((delta - lo) / (hi - lo), 0.0, 1.0)
-    out = jnp.where(v > 0, out, 0.0)
-
-    row = jax.lax.broadcasted_iota(jnp.int32, (H, W), 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (H, W), 1)
-    inside = ((col >= BORDER) & (col <= W - 1 - BORDER)
-              & (row >= BORDER) & (row <= H - 1 - BORDER))
-    out_ref[0] = jnp.where(inside, out, 0.0)
-
-
-@functools.partial(jax.jit, static_argnames=("lo", "hi", "interpret"))
-def depth_edge_pallas(depth: jnp.ndarray, lo: float = THRESH_LOW,
-                      hi: float = THRESH_HIGH,
-                      interpret: bool = False) -> jnp.ndarray:
-    """Batched Pallas edge kernel: depth (B, H, W) linear metric depth."""
-    squeeze = depth.ndim == 2
-    if squeeze:
-        depth = depth[None]
-    B, H, W = depth.shape
-    v = jnp.where(jnp.isfinite(depth) & (depth > 0), depth, -1.0).astype(jnp.float32)
-
-    out = pl.pallas_call(
-        functools.partial(_edge_kernel, lo=lo, hi=hi),
-        grid=(B,),
-        in_specs=[pl.BlockSpec((1, H, W), lambda b: (b, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, H, W), lambda b: (b, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((B, H, W), jnp.float32),
-        interpret=interpret,
-    )(v)
-    return out[0] if squeeze else out
-
-
-# ---------------------------------------------------------------------------
 # Frontend gradient kernels (for corner detection / photometric tracking)
 # ---------------------------------------------------------------------------
 
@@ -152,10 +88,8 @@ SOBEL_Y = SOBEL_X.T
 def sobel_gradients(image: jnp.ndarray):
     """(H, W) float image -> (gx, gy), same shape, zero padding.
 
-    Expressed as padded static shifts + elementwise adds (VPU work XLA
-    fuses into one pass) instead of a 1-input-channel conv — a single-
-    channel 2D conv uses 1/128th of the MXU and measured ~10x slower on
-    v5e at 512x960."""
+    Expressed as padded static shifts + elementwise adds, which XLA fuses
+    into one pass, instead of a 1-input-channel conv."""
     img = image.astype(jnp.float32)
     H, W = img.shape
     xp = jnp.pad(img, 1)

@@ -3,22 +3,13 @@
 Reference parity: the scalar CPU loop at undistorter.cpp:410-434, with
 identical blend weights (xxyy formulation) and invalid-pixel -> 0 semantics.
 
-TPU note: this op is pure random gather. XLA's native gather lowering is
-the fast path on TPU; Mosaic/Pallas deliberately supports only 2D
-take-along-axis gathers, and emulating general gather with one-hot matmuls
-would burn ~300 GFLOP/frame of MXU time to avoid a sub-millisecond gather.
-So the XLA formulation below (4 flat takes, fused into one gather kernel)
-IS the TPU-native implementation; `bilinear_remap_pallas` exists as a
-Pallas reference kernel for interpret-mode semantic tests and CPU use.
+The op is a pure random gather: four flat takes, which XLA fuses into
+one gather kernel.
 """
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def _remap_single(image: jnp.ndarray, remap: jnp.ndarray) -> jnp.ndarray:
@@ -73,68 +64,3 @@ def bilinear_remap(image: jnp.ndarray, remap: jnp.ndarray) -> jnp.ndarray:
         fn = jax.vmap(fn, in_axes=(0, None))
     return fn(image, remap)
 
-
-# ---------------------------------------------------------------------------
-# Pallas kernel
-# ---------------------------------------------------------------------------
-
-def _remap_tile_kernel(img_ref, sx_ref, sy_ref, out_ref):
-    H, W = img_ref.shape
-    sx = sx_ref[...]
-    sy = sy_ref[...]
-    valid = sx >= 0.0
-
-    x0f = jnp.clip(jnp.floor(sx), 0.0, W - 2)
-    y0f = jnp.clip(jnp.floor(sy), 0.0, H - 2)
-    fx = jnp.clip(sx - x0f, 0.0, 1.0)
-    fy = jnp.clip(sy - y0f, 0.0, 1.0)
-    fxy = fx * fy
-
-    base = y0f.astype(jnp.int32) * W + x0f.astype(jnp.int32)
-    flat = img_ref[...].reshape(H * W)
-    shape = base.shape
-    p00 = jnp.take(flat, base.reshape(-1)).reshape(shape)
-    p01 = jnp.take(flat, (base + 1).reshape(-1)).reshape(shape)
-    p10 = jnp.take(flat, (base + W).reshape(-1)).reshape(shape)
-    p11 = jnp.take(flat, (base + W + 1).reshape(-1)).reshape(shape)
-
-    out = (fxy * p11 + (fy - fxy) * p10 + (fx - fxy) * p01
-           + (1.0 - fx - fy + fxy) * p00)
-    out_ref[...] = jnp.where(valid, out, 0.0)
-
-
-@functools.partial(jax.jit, static_argnames=("tile_rows", "interpret"))
-def bilinear_remap_pallas(image: jnp.ndarray, remap: jnp.ndarray,
-                          tile_rows: int = 64,
-                          interpret: bool = True) -> jnp.ndarray:
-    """Pallas reference remap kernel (interpret mode; see module docstring —
-    on TPU hardware use `bilinear_remap`, whose XLA gather is the fast path).
-
-    Whole input frame stays resident in VMEM across grid steps; output is
-    produced in `tile_rows`-row tiles.
-    """
-    assert image.ndim == 2, "pallas path: single-channel (H, W)"
-    H, W = image.shape
-    oh, ow = remap.shape[:2]
-    n_tiles = -(-oh // tile_rows)
-    pad_oh = n_tiles * tile_rows
-
-    sx = jnp.pad(remap[..., 0], ((0, pad_oh - oh), (0, 0)), constant_values=-1.0)
-    sy = jnp.pad(remap[..., 1], ((0, pad_oh - oh), (0, 0)), constant_values=-1.0)
-
-    out = pl.pallas_call(
-        _remap_tile_kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((H, W), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_rows, ow), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_rows, ow), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile_rows, ow), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((pad_oh, ow), jnp.float32),
-        interpret=interpret,
-    )(image.astype(jnp.float32), sx, sy)
-    return out[:oh]

@@ -7,10 +7,9 @@ real-scale mesh. This module builds the second mesh — an office desk with
 an off-center drawer pedestal (~5k faces, fully yaw-asymmetric) — and a
 procedural office-chair stand-in used only when the reference mesh is not
 on disk. Triangle counts are deliberately in the aeron's class so raster
-cost in the bench reflects the real workload (VERDICT r3: the old bench
-meshes were 24-face boxes, ~200x lighter than the real substrate; the
-box's square x-z cross-section also made yaw unobservable — the 21.6 deg
-outlier).
+cost in the bench reflects the real workload (24-face boxes were ~200x
+lighter than the real substrate, and a box's square x-z cross-section
+leaves yaw unobservable).
 
 All generators return (V (N,3) float32, F (T,3) int32) with centered
 footprints so +y is up and the model origin is on the ground plane's

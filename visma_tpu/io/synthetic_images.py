@@ -17,8 +17,7 @@ Two generators:
   the filter's chi2 gate must reject).
 
 bench.py runs the flagship throughput/ATE metric on the adversarial
-generator (VERDICT r2 item 4); the gate parameters are justified by the
-noise sweep in tools/noise_sweep.py (results in docs/NOISE_SWEEP.md).
+generator; tools/noise_sweep.py sweeps the gate's operating points.
 """
 from __future__ import annotations
 
@@ -63,18 +62,17 @@ def render_blob_frames(cfg: SyntheticConfig, sigma: float = 2.0,
 
 
 def _bg_texture(rng, size: int = 512, octaves: int = 4) -> np.ndarray:
-    """Smooth multi-octave random texture in [-1, 1], wrap-periodic in the
-    longitude axis (axis 1) so the sphere seam is invisible."""
-    import cv2
+    """Smooth multi-octave random texture in [-1, 1], periodic in both
+    axes (cubic spline upsampling of wrapped coarse noise), so the
+    longitude seam of the background sphere is invisible."""
+    from scipy import ndimage
 
     tex = np.zeros((size, size), np.float32)
     for o in range(octaves):
         n = 8 << o
         coarse = rng.standard_normal((n, n)).astype(np.float32)
-        coarse = np.concatenate([coarse, coarse[:, :1]], axis=1)  # wrap u
-        up = cv2.resize(coarse, (size + size // n, size),
-                        interpolation=cv2.INTER_CUBIC)[:, :size]
-        tex += up / (1.6 ** o)
+        tex += ndimage.zoom(coarse, size / n, order=3, mode="grid-wrap",
+                            grid_mode=True) / (1.6 ** o)
     tex /= np.abs(tex).max() + 1e-6
     return tex
 
@@ -85,8 +83,6 @@ def _sphere_background(gwc: np.ndarray, cfg: SyntheticConfig,
     ray-sphere intersection (camera at gwc, sphere centered at the world
     origin) — background texture that moves EXACTLY as distant geometry
     should under the trajectory."""
-    import cv2
-
     H, W = cfg.rows, cfg.cols
     R, t = gwc[:, :3], gwc[:, 3]
     u, v = np.meshgrid(np.arange(W, dtype=np.float32),
@@ -105,8 +101,14 @@ def _sphere_background(gwc: np.ndarray, cfg: SyntheticConfig,
     th, tw = tex.shape
     mu = ((lon / (2 * np.pi) + 0.5) * tw).astype(np.float32)
     mv = ((lat / np.pi + 0.5) * (th - 1)).astype(np.float32)
-    return cv2.remap(tex, mu, mv, interpolation=cv2.INTER_LINEAR,
-                     borderMode=cv2.BORDER_WRAP)
+    return _sample_wrap(tex, mu, mv)
+
+
+def _sample_wrap(tex: np.ndarray, mu: np.ndarray, mv: np.ndarray):
+    """Bilinear samples of tex at (x=mu, y=mv), coordinates wrapped."""
+    from scipy import ndimage
+
+    return ndimage.map_coordinates(tex, [mv, mu], order=1, mode="grid-wrap")
 
 
 def render_adversarial_frames(cfg: SyntheticConfig, sigma: float = 2.0,

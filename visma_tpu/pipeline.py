@@ -39,11 +39,11 @@ class PipelineState:
 
 class VioPipeline:
     def __init__(self, cfg: FilterConfig, levels: int = 3, cell: int = 16,
-                 klt_radius: int = 5, fused_klt: bool = None):
+                 klt_radius: int = 5):
         self.cfg = cfg
         self.tracker = FeatureTracker(max_features=cfg.max_tracks,
                                       levels=levels, radius=klt_radius,
-                                      cell=cell, fused=fused_klt)
+                                      cell=cell)
         self.msckf = Msckf(cfg)
 
         def step_full(state: PipelineState, image, gyro, accel, dts):
@@ -84,7 +84,7 @@ class VioPipeline:
     def run(self, state: PipelineState, images, gyro, accel, dts):
         """Throughput mode: scan the full per-frame step over a device-
         staged chunk of frames — ONE dispatch for the whole chunk, so
-        per-frame cost is compute, not relay round-trips (the Msckf.run
+        per-frame cost is compute, not dispatch overhead (the Msckf.run
         idiom applied to the image pipeline).
 
         images (N,H,W) f32; gyro/accel (N,S,3); dts (N,S).

@@ -6,13 +6,13 @@ from visma_tpu.render.likelihood import (
     occlusion_aware_edge_score, scene_depth, score_hypotheses,
 )
 from visma_tpu.render.raster import (
-    Renderer, rasterize_depth, rasterize_depth_brute,
-    rasterize_depth_chunked, sort_faces_morton,
+    MultiMeshRenderer, Renderer, rasterize_depth, rasterize_depth_brute,
+    rasterize_depth_multi, sort_faces_morton,
 )
 
 __all__ = [
-    "Intrinsics", "to_gl_depth", "Renderer",
-    "rasterize_depth", "rasterize_depth_brute", "rasterize_depth_chunked",
+    "Intrinsics", "to_gl_depth", "MultiMeshRenderer", "Renderer",
+    "rasterize_depth", "rasterize_depth_brute", "rasterize_depth_multi",
     "sort_faces_morton", "scene_depth", "score_hypotheses",
     "occlusion_aware_edge_score",
 ]

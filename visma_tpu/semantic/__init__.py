@@ -4,11 +4,11 @@ The reference repo stores this subsystem's OUTPUT (result.json of
 per-timestamp object poses, consumed at evaluation.cpp:163-198) but not
 the subsystem itself — the papers' semantic mapper tracked CAD-model poses
 by rendering hypotheses and scoring them against image edges. This package
-provides that capability TPU-first:
+provides that capability on the accelerator:
 
 * cem.py: cross-entropy-method SE(3) pose refinement over batched
   render+chamfer scoring (hundreds of hypotheses per iteration on the
-  rasterizer's vmap axis);
+  rasterizer's batch axis);
 * mapper.py: per-object track management from bounding-box detections +
   result.json export compatible with the reference evaluation pipeline.
 """

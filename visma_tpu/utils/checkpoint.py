@@ -10,7 +10,8 @@ checkpoint (SURVEY.md §5). Here both idioms exist:
 * `export_packets` (visma_tpu.pipeline) writes the reference-compatible
   dataset file, the interop checkpoint.
 
-Falls back to a numpy .npz container when orbax is unavailable.
+Falls back to a numpy .npz container when orbax is unavailable or cannot
+store the tree.
 """
 from __future__ import annotations
 
@@ -30,20 +31,25 @@ def _tree_to_flat(tree) -> Tuple[dict, Any]:
 
 
 def save_state(path: str, tree, step: int = 0) -> None:
-    """Snapshot a pytree to `path` (directory)."""
+    """Snapshot a pytree to `path` (directory): orbax when it is installed
+    and every leaf is non-empty (orbax refuses zero-size arrays, such as
+    the SLAM slots of a filter with num_slam=0), else npz."""
+    import jax
+
     os.makedirs(path, exist_ok=True)
+    host_tree = jax.tree.map(lambda x: np.asarray(x), tree)
     try:
         import orbax.checkpoint as ocp
-
+    except ImportError:
+        ocp = None
+    if ocp is not None and all(
+            x.size for x in jax.tree_util.tree_leaves(host_tree)):
         ckptr = ocp.StandardCheckpointer()
-        import jax
-
-        host_tree = jax.tree.map(lambda x: np.asarray(x), tree)
         ckptr.save(os.path.join(os.path.abspath(path), f"step_{step}"),
                    host_tree, force=True)
         ckptr.wait_until_finished()
-    except Exception:
-        flat, _ = _tree_to_flat(tree)
+    else:
+        flat, _ = _tree_to_flat(host_tree)
         np.savez(os.path.join(path, f"step_{step}.npz"), **flat)
     with open(os.path.join(path, "latest.json"), "w") as fp:
         json.dump({"step": step}, fp)
